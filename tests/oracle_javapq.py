@@ -4,7 +4,7 @@ This is a SECOND, deliberately separate implementation of the reference's
 Huffman tree build (``core/CanonicalHuffman.java:55-92``), transcribed from
 the OpenJDK PriorityQueue specification (siftUpComparable /
 siftDownComparable, JDK 21) rather than from the framework's ``_JavaHeap``
-(``datacomp_tpu/core/huffman.py``).  The two implementations share no code;
+(``datacomp/core/huffman.py``).  The two implementations share no code;
 ``tests/test_huffman.py`` differential-fuzzes them for identical code
 *lengths* across random histograms, so a wrong sift detail in either one
 fails loudly.  Code lengths are exactly what plain optimality checks cannot

@@ -6,8 +6,8 @@ import json
 
 import pytest
 
-from datacomp_tpu.benchmark import BenchmarkSuite
-from datacomp_tpu.config import load_config
+from datacomp.benchmark import BenchmarkSuite
+from datacomp.config import load_config
 
 
 @pytest.fixture(scope="module")
@@ -50,7 +50,7 @@ def test_csv_format(results):
 
 
 def test_metrics_models():
-    from datacomp_tpu.models import (
+    from datacomp.models import (
         CompressionMetrics,
         MetricsService,
         OperationType,
@@ -81,7 +81,7 @@ def test_metrics_models():
 def test_kernel_microbench_runs():
     """Slope-timed kernel microbench executes on the CPU platform and
     returns sane numbers for every kernel."""
-    from datacomp_tpu.benchmark.kernels import format_kernel_results, run_kernel_bench
+    from datacomp.benchmark.kernels import format_kernel_results, run_kernel_bench
 
     res = run_kernel_bench(size_mb=1, kind="text", k_points=(1, 2), repeats=1)
     assert {"histogram", "codebook", "encode", "decode"} <= set(res)
@@ -106,8 +106,8 @@ def test_corpus_bench(tmp_path):
     """Corpus generator + benchmark: every generated type round-trips, ratios
     land at/above their order-0 entropy bound, typed files compare against
     the reference's published table (``dcz bench --corpus``)."""
-    from datacomp_tpu.benchmark.corpus import format_corpus_results, run_corpus_bench
-    from datacomp_tpu.utils.testdata import generate_corpus
+    from datacomp.benchmark.corpus import format_corpus_results, run_corpus_bench
+    from datacomp.utils.testdata import generate_corpus
 
     d = tmp_path / "corpus"
     written = generate_corpus(str(d), scale=0.02)  # ~1.3 MB total

@@ -4,8 +4,8 @@ C++ cross-validation, round trips on varied data shapes."""
 import numpy as np
 import pytest
 
-from datacomp_tpu import native
-from datacomp_tpu.core import (
+from datacomp import native
+from datacomp.core import (
     build_codebook,
     decode_bitstream_py,
     encode_bitstream,

@@ -5,8 +5,8 @@ import os
 
 import pytest
 
-from datacomp_tpu.cli import main
-from datacomp_tpu.utils.testdata import generate_bytes
+from datacomp.cli import main
+from datacomp.utils.testdata import generate_bytes
 
 
 @pytest.fixture
@@ -59,7 +59,7 @@ def test_gen_command(tmp_path, capsys):
 
 
 def test_format_v2_flag(sample, tmp_path):
-    from datacomp_tpu.core import read_container
+    from datacomp.core import read_container
 
     dcz = str(tmp_path / "o2.dcz")
     assert main(["compress", sample, dcz, "1", "--backend", "cpu", "--format", "2"]) == 0
@@ -71,6 +71,17 @@ def test_stages_flag(sample, tmp_path, capsys):
     dcz = str(tmp_path / "s.dcz")
     assert main(["compress", sample, dcz, "1", "--backend", "cpu", "--stages"]) == 0
     assert "Stage Performance Breakdown" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("extra", [[], ["--sharded"]])
+def test_backend_gpu_without_gpu_fails_cleanly(sample, tmp_path, capsys, extra):
+    """A named GPU that is not there is an error with a non-zero exit and no
+    output file — never a silent CPU run."""
+    dcz = tmp_path / "o.dcz"
+    rc = main(["compress", sample, str(dcz), "1", "--backend", "gpu", *extra])
+    assert rc != 0
+    assert "no gpu device" in capsys.readouterr().err
+    assert not dcz.exists()
 
 
 def test_sharded_compress_decompress_roundtrip(tmp_path, capsys):

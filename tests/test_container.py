@@ -8,7 +8,7 @@ import struct
 import numpy as np
 import pytest
 
-from datacomp_tpu.core import (
+from datacomp.core import (
     CHUNK_META_LEN_V1,
     MAGIC,
     ChunkMeta,

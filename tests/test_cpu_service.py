@@ -8,11 +8,11 @@ import os
 import numpy as np
 import pytest
 
-from datacomp_tpu.config import load_config
-from datacomp_tpu.core import read_container
-from datacomp_tpu.services.cpu_service import CpuCompressionService
-from datacomp_tpu.services.pipeline import _partial_path, read_partial
-from datacomp_tpu.utils.testdata import generate_bytes
+from datacomp.config import load_config
+from datacomp.core import read_container
+from datacomp.services.cpu_service import CpuCompressionService
+from datacomp.services.pipeline import _partial_path, read_partial
+from datacomp.utils.testdata import generate_bytes
 
 
 @pytest.fixture
@@ -118,7 +118,7 @@ def test_resume_compression(tmp_path):
     h, _ = read_container(dcz)
     cut = h.chunks[1].compressed_offset + h.chunks[1].compressed_size
     # rebuild sidecar for first 2 chunks
-    from datacomp_tpu.services.pipeline import _write_partial_header, _append_partial_chunk
+    from datacomp.services.pipeline import _write_partial_header, _append_partial_chunk
 
     with open(_partial_path(dcz), "wb") as f:
         _write_partial_header(f, h)
@@ -226,9 +226,9 @@ def test_max_code_len_noop_on_typical_data(tmp_path):
 def test_deep_verify_detects_payload_corruption(tmp_path):
     """deep verify decodes every chunk (in parallel) and must return False —
     not raise — on a corrupted payload byte."""
-    from datacomp_tpu.config import load_config
-    from datacomp_tpu.services.cpu_service import CpuCompressionService
-    from datacomp_tpu.utils.testdata import generate_bytes
+    from datacomp.config import load_config
+    from datacomp.services.cpu_service import CpuCompressionService
+    from datacomp.utils.testdata import generate_bytes
 
     cfg = load_config(compression={"chunk_size_mb": 1})
     src = tmp_path / "v.bin"
@@ -252,8 +252,8 @@ def test_compress_backpressure_bounds_inflight(tmp_path):
     import threading
     import time
 
-    from datacomp_tpu.services.cpu_service import CpuChunkCodec
-    from datacomp_tpu.services.pipeline import ChunkCodec, ChunkedPipeline
+    from datacomp.services.cpu_service import CpuChunkCodec
+    from datacomp.services.pipeline import ChunkCodec, ChunkedPipeline
 
     cfg = load_config(compression={"chunk_size_mb": 1})
     chunk = 1024 * 1024
@@ -328,7 +328,7 @@ def _rewrite_header_first(dcz: str, legacy: str) -> None:
     """Re-lay a footer-last .dcz as the legacy header-first layout the
     reference also reads (CpuCompressionService.java:328-393): footer at
     offset 0, payloads at the END, no trailing pointer."""
-    from datacomp_tpu.core import container as ct
+    from datacomp.core import container as ct
 
     header, data_start = read_container(dcz)
     with open(dcz, "rb") as f:
@@ -345,7 +345,7 @@ def test_deep_verify_scan_fallback_layouts(svc, tmp_path, monkeypatch):
     0 for footer-last, fileSize - sum(compressedSize) for legacy header-first
     (payloads at the END) — not assumed 0, which would pread wrong ranges
     and misreport an intact legacy archive as corrupt."""
-    from datacomp_tpu.core import container as ct
+    from datacomp.core import container as ct
 
     data = generate_bytes("text", 40 * 1024)  # whole file within scan window
     src = tmp_path / "t.bin"

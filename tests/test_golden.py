@@ -20,9 +20,9 @@ import os
 
 import pytest
 
-from datacomp_tpu.config import load_config
-from datacomp_tpu.services.cpu_service import CpuCompressionService
-from datacomp_tpu.utils.testdata import generate_bytes
+from datacomp.config import load_config
+from datacomp.services.cpu_service import CpuCompressionService
+from datacomp.utils.testdata import generate_bytes
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 FIXED_MTIME = 1_700_000_000

@@ -13,7 +13,7 @@ import heapq
 import numpy as np
 import pytest
 
-from datacomp_tpu.core import (
+from datacomp.core import (
     build_code_lengths,
     build_codebook,
     canonical_codes_from_lengths,
@@ -334,8 +334,8 @@ class TestAutoCap:
     (v2 default — keeps device decode at the highest symbols-per-refill)."""
 
     def test_text_histogram_caps_to_8(self):
-        from datacomp_tpu.core import resolve_auto_cap
-        from datacomp_tpu.utils.testdata import generate_bytes
+        from datacomp.core import resolve_auto_cap
+        from datacomp.utils.testdata import generate_bytes
 
         data = np.frombuffer(generate_bytes("text", 1 << 20), np.uint8)
         hist = np.bincount(data, minlength=256).astype(np.int64)
@@ -349,8 +349,8 @@ class TestAutoCap:
         assert validate_lengths(capped)
 
     def test_shallowest_tier_within_budget_is_chosen(self):
-        from datacomp_tpu.core import resolve_auto_cap
-        from datacomp_tpu.core.huffman import AUTO_CAP_TIERS, _lengths_package_merge
+        from datacomp.core import resolve_auto_cap
+        from datacomp.core.huffman import AUTO_CAP_TIERS, _lengths_package_merge
 
         # 10 hot symbols + 200 rare ones: the 8-bit tier is too lossy, a
         # deeper tier absorbs the rare tail cheaply
@@ -372,7 +372,7 @@ class TestAutoCap:
             assert cost > 0.005 * opt_bits, f"tier {t} was within budget but not chosen"
 
     def test_v2_default_is_auto_v1_is_exact(self):
-        from datacomp_tpu.config import load_config
+        from datacomp.config import load_config
 
         v1 = load_config(compression={"format_version": 1})
         v2 = load_config(compression={"format_version": 2})

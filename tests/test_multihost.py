@@ -8,9 +8,9 @@ import os
 import numpy as np
 import pytest
 
-from datacomp_tpu.config import load_config
-from datacomp_tpu.core import ChunkMeta, read_container
-from datacomp_tpu.parallel.multihost import (
+from datacomp.config import load_config
+from datacomp.core import ChunkMeta, read_container
+from datacomp.parallel.multihost import (
     ChunkAssignment,
     assemble_header,
     global_offsets,
@@ -18,10 +18,10 @@ from datacomp_tpu.parallel.multihost import (
     write_footer_host0,
     write_host_payloads,
 )
-from datacomp_tpu.services.cpu_service import CpuChunkCodec, CpuCompressionService
-from datacomp_tpu.models import StageMetrics
-from datacomp_tpu.utils.checksum import compute_sha256
-from datacomp_tpu.utils.testdata import generate_bytes
+from datacomp.services.cpu_service import CpuChunkCodec, CpuCompressionService
+from datacomp.models import StageMetrics
+from datacomp.utils.checksum import compute_sha256
+from datacomp.utils.testdata import generate_bytes
 
 
 def test_striped_assignment_covers_all():
@@ -115,10 +115,10 @@ def test_simulated_multihost_compress(tmp_path):
 
 def test_compress_multihost_single_process_identical(tmp_path):
     """compress_multihost degrades to a byte-identical single-host compress."""
-    from datacomp_tpu.config import load_config
-    from datacomp_tpu.parallel.multihost import compress_multihost
-    from datacomp_tpu.services.cpu_service import CpuCompressionService
-    from datacomp_tpu.utils.testdata import generate_bytes
+    from datacomp.config import load_config
+    from datacomp.parallel.multihost import compress_multihost
+    from datacomp.services.cpu_service import CpuCompressionService
+    from datacomp.utils.testdata import generate_bytes
 
     src = tmp_path / "in.bin"
     src.write_bytes(generate_bytes("text", 3 << 20) + generate_bytes("random", 1 << 20))
@@ -142,8 +142,8 @@ jax.distributed.initialize(
     num_processes=2,
     process_id=int(sys.argv[2]),
 )
-from datacomp_tpu.config import load_config
-from datacomp_tpu.parallel.multihost import compress_multihost, decompress_multihost
+from datacomp.config import load_config
+from datacomp.parallel.multihost import compress_multihost, decompress_multihost
 cfg = load_config(compression={"chunk_size_mb": 1, "format_version": 2})
 compress_multihost(sys.argv[3], sys.argv[4], cfg)
 decompress_multihost(sys.argv[4], sys.argv[5], cfg)
@@ -158,9 +158,9 @@ def test_compress_multihost_two_processes(tmp_path):
     import subprocess
     import sys
 
-    from datacomp_tpu.config import load_config
-    from datacomp_tpu.services.cpu_service import CpuCompressionService
-    from datacomp_tpu.utils.testdata import generate_bytes
+    from datacomp.config import load_config
+    from datacomp.services.cpu_service import CpuCompressionService
+    from datacomp.utils.testdata import generate_bytes
 
     src = tmp_path / "in.bin"
     src.write_bytes(
@@ -205,32 +205,32 @@ def test_compress_multihost_two_processes(tmp_path):
     assert mh_restored.read_bytes() == src.read_bytes()
 
 
-def test_compress_multihost_tpu_backend(tmp_path):
-    """backend="tpu" encodes stripes with the device codec (CPU platform
+def test_compress_multihost_gpu_backend(tmp_path):
+    """backend="gpu" encodes stripes with the device codec (CPU platform
     here) and still produces output identical to the CPU-codec path with a
     java-mode codebook."""
-    from datacomp_tpu.config import load_config
-    from datacomp_tpu.parallel.multihost import compress_multihost
-    from datacomp_tpu.utils.testdata import generate_bytes
+    from datacomp.config import load_config
+    from datacomp.parallel.multihost import compress_multihost
+    from datacomp.utils.testdata import generate_bytes
 
     src = tmp_path / "in.bin"
     src.write_bytes(generate_bytes("text", 2 << 20))
     cfg = load_config(compression={"chunk_size_mb": 1, "format_version": 2})
     compress_multihost(str(src), str(tmp_path / "cpu.dcz"), cfg, backend="cpu")
-    compress_multihost(str(src), str(tmp_path / "tpu.dcz"), cfg, backend="tpu")
-    assert (tmp_path / "tpu.dcz").read_bytes() == (tmp_path / "cpu.dcz").read_bytes()
+    compress_multihost(str(src), str(tmp_path / "dev.dcz"), cfg, backend="gpu")
+    assert (tmp_path / "dev.dcz").read_bytes() == (tmp_path / "cpu.dcz").read_bytes()
 
 
 def test_compress_multihost_mesh_identical_to_single_host_service(tmp_path):
     """The flagship multi-chip axis: a virtual 8-device mesh encodes the
     stripe through ONE sharded device program per group
     (make_sharded_compress_step), and the output file is byte-identical to
-    the single-host TPU service's — same raw-store routing (host pre-pass),
+    the single-host device service's — same raw-store routing (host pre-pass),
     same device codebooks, same encoded bits, same container."""
-    from datacomp_tpu.config import load_config
-    from datacomp_tpu.parallel import make_mesh
-    from datacomp_tpu.parallel.multihost import compress_multihost
-    from datacomp_tpu.services.tpu_service import TpuCompressionService
+    from datacomp.config import load_config
+    from datacomp.parallel import make_mesh
+    from datacomp.parallel.multihost import compress_multihost
+    from datacomp.services.device_service import DeviceCompressionService
 
     src = tmp_path / "in.bin"
     # 3 full chunks + ragged tail; one random chunk exercises raw-store
@@ -247,12 +247,12 @@ def test_compress_multihost_mesh_identical_to_single_host_service(tmp_path):
         }
     )
     ref = tmp_path / "single.dcz"
-    with TpuCompressionService(cfg) as svc:
+    with DeviceCompressionService(cfg) as svc:
         svc.compress(str(src), str(ref))
 
     mesh = make_mesh(8)
     out = tmp_path / "mesh.dcz"
-    compress_multihost(str(src), str(out), cfg, backend="tpu", mesh=mesh)
+    compress_multihost(str(src), str(out), cfg, backend="gpu", mesh=mesh)
     assert out.read_bytes() == ref.read_bytes(), (
         "mesh-sharded multihost output differs from the single-host service"
     )
@@ -266,7 +266,7 @@ def test_compress_multihost_mesh_identical_to_single_host_service(tmp_path):
 def test_decompress_multihost_single_process_identical(tmp_path):
     """decompress_multihost (CPU backend) restores bytes identical to the
     single-host service for both container versions."""
-    from datacomp_tpu.parallel.multihost import compress_multihost, decompress_multihost
+    from datacomp.parallel.multihost import compress_multihost, decompress_multihost
 
     blob = (
         generate_bytes("text", 2 << 20)
@@ -289,9 +289,9 @@ def test_decompress_multihost_mesh_mixed_corpus(tmp_path):
     through ONE sharded device program per group, with raw-store chunks and a
     DEEP-codebook chunk (>16-bit codes, host-delegated) routed around it and
     a ragged tail — restored bytes must equal the source byte-for-byte."""
-    from datacomp_tpu.models import StageMetrics
-    from datacomp_tpu.parallel import make_mesh
-    from datacomp_tpu.parallel.multihost import decompress_multihost
+    from datacomp.models import StageMetrics
+    from datacomp.parallel import make_mesh
+    from datacomp.parallel.multihost import decompress_multihost
 
     # fib-skewed chunk forces >16-bit code lengths (the host-delegation path)
     fib = [1, 1]
@@ -324,12 +324,12 @@ def test_decompress_multihost_mesh_mixed_corpus(tmp_path):
     metrics = StageMetrics()
     fracs = []
     decompress_multihost(
-        str(dcz), str(out), cfg, backend="tpu", mesh=make_mesh(8),
+        str(dcz), str(out), cfg, backend="gpu", mesh=make_mesh(8),
         progress=fracs.append, metrics=metrics,
     )
     assert out.read_bytes() == blob, "mesh decompress mismatch"
     assert fracs and fracs[-1] == 1.0
-    from datacomp_tpu.models import Stage
+    from datacomp.models import Stage
 
     assert metrics.count(Stage.DECODING) > 0
 
@@ -337,8 +337,8 @@ def test_decompress_multihost_mesh_mixed_corpus(tmp_path):
 def test_compress_multihost_progress_and_metrics(tmp_path):
     """compress_multihost reports progress over the local stripe and fills
     the same stage cards as the single-host service (round-4 weak #2)."""
-    from datacomp_tpu.models import Stage, StageMetrics
-    from datacomp_tpu.parallel.multihost import compress_multihost
+    from datacomp.models import Stage, StageMetrics
+    from datacomp.parallel.multihost import compress_multihost
 
     src = tmp_path / "in.bin"
     src.write_bytes(generate_bytes("text", 2 << 20) + b"x" * 100)
@@ -362,8 +362,8 @@ import os, resource, sys
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.device_count()  # force backend init before the baseline RSS sample
-from datacomp_tpu.config import load_config
-from datacomp_tpu.parallel.multihost import compress_multihost, decompress_multihost
+from datacomp.config import load_config
+from datacomp.parallel.multihost import compress_multihost, decompress_multihost
 cfg = load_config(compression={"chunk_size_mb": 16, "format_version": 2})
 before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
 compress_multihost(sys.argv[1], sys.argv[2], cfg)

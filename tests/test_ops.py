@@ -7,13 +7,13 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from datacomp_tpu.core import build_codebook, encode_bitstream  # noqa: E402
-from datacomp_tpu.core.huffman import (  # noqa: E402
+from datacomp.core import build_codebook, encode_bitstream  # noqa: E402
+from datacomp.core.huffman import (  # noqa: E402
     build_code_lengths,
     canonical_codes_from_lengths,
     validate_lengths,
 )
-from datacomp_tpu.ops import (  # noqa: E402
+from datacomp.ops import (  # noqa: E402
     build_decode_tables,
     decode_device,
     device_canonical_codes,
@@ -22,10 +22,10 @@ from datacomp_tpu.ops import (  # noqa: E402
     payload_to_words,
     words_to_bytes,
 )
-from datacomp_tpu.ops.encode_scan_oracle import (  # noqa: E402 — test oracle
+from datacomp.ops.encode_scan_oracle import (  # noqa: E402 — test oracle
     encode_device_scan_oracle,
 )
-from datacomp_tpu.utils.testdata import generate_bytes  # noqa: E402
+from datacomp.utils.testdata import generate_bytes  # noqa: E402
 
 
 class TestHistogram:
@@ -41,62 +41,161 @@ class TestHistogram:
         assert np.array_equal(h, np.bincount(data, minlength=256))
 
 
-class TestHistogramPallas:
-    """Pallas packed-8 kernel, run through the interpreter on the CPU tier
-    (compiled through Mosaic on real TPU — see test_tpu_hardware.py)."""
+class TestCompilationCache:
+    def test_default_dir_is_fixed_in_checkout(self):
+        import os
 
-    @pytest.mark.parametrize(
-        "cap,n",
-        [(1 << 18, 1 << 18), (1 << 18, 200_001), (1 << 18, 0), (1 << 20, 1 << 19)],
-    )
-    def test_matches_bincount(self, rng, cap, n):
-        from datacomp_tpu.ops.histogram_pallas import histogram_pallas
+        import datacomp
+        from datacomp.ops import DEFAULT_CACHE_DIR
 
-        data = rng.integers(0, 256, cap).astype(np.uint8)
-        h = np.asarray(
-            histogram_pallas(jnp.asarray(data), jnp.int32(n), rows=512, interpret=True)
-        )
-        assert np.array_equal(h, np.bincount(data[:n], minlength=256))
+        checkout = os.path.dirname(os.path.dirname(os.path.abspath(datacomp.__file__)))
+        assert DEFAULT_CACHE_DIR == os.path.join(checkout, ".jax_cache")
+
+    @pytest.mark.parametrize("env_dir", [None, "custom"])
+    def test_env_var_honoured(self, tmp_path, env_dir):
+        """``JAX_COMPILATION_CACHE_DIR`` wins when set; otherwise importing
+        the ops points the cache at the fixed in-checkout path."""
+        import os
+        import subprocess
+        import sys
+
+        from datacomp.ops import DEFAULT_CACHE_DIR
+
+        env = {k: v for k, v in os.environ.items()
+               if k != "JAX_COMPILATION_CACHE_DIR"}
+        want = DEFAULT_CACHE_DIR
+        if env_dir:
+            want = str(tmp_path / env_dir)
+            env["JAX_COMPILATION_CACHE_DIR"] = want
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+        out = subprocess.run(
+            [sys.executable, "-c",
+             "import jax, datacomp.ops; print(jax.config.jax_compilation_cache_dir)"],
+            env=env, capture_output=True, text=True, check=True, timeout=300,
+        ).stdout.strip().splitlines()[-1]
+        assert out == want
+
+
+class TestHistogramValidLen:
+    """The masked-tail contract of :func:`histogram_device` under the shapes
+    the services use: vmapped chunk batches and multi-tile chunks."""
 
     def test_vmapped_batches(self, rng):
-        """vmap prepends a batch axis to the pallas grid; the accumulator
-        zero-init keys off ``pl.program_id(0)``, which must keep meaning the
-        first USER grid axis (jax filters ``vmapped_dims`` out of the
-        kernel-visible grid indices).  Regression test for a suspected
-        stale-accumulator bug under vmap (advisor r2): every batch element
-        must histogram its OWN data across a multi-step grid."""
-        from datacomp_tpu.ops.histogram_pallas import histogram_pallas
-
-        B, cap = 3, 1 << 15  # rows=64 -> 4 grid steps per batch element
+        """Every batch element of a vmapped histogram counts only its OWN
+        ``valid_len`` prefix (the batched service pipeline and the mesh step
+        vmap it over chunks)."""
+        B, cap = 3, 1 << 15
         data = rng.integers(0, 256, (B, cap)).astype(np.uint8)
         valid = np.array([cap, cap - 12345, 7], np.int32)
         out = np.asarray(
-            jax.vmap(
-                lambda d, v: histogram_pallas(d, v, rows=64, interpret=True)
-            )(jnp.asarray(data), jnp.asarray(valid))
+            jax.vmap(lambda d, v: histogram_device(d, v, tile=1 << 13))(
+                jnp.asarray(data), jnp.asarray(valid)
+            )
         )
         for b in range(B):
             want = np.bincount(data[b, : valid[b]], minlength=256)
             assert np.array_equal(out[b], want), f"batch {b} corrupt"
 
-    def test_segments_beyond_exact_bound(self, rng):
-        """Chunks past the 2^24 f32-exact bound split into exact segments."""
-        import importlib
+    @pytest.mark.parametrize("delta", [-1, 0, 1, 4097])
+    def test_valid_len_straddles_tile_boundary(self, rng, delta):
+        tile = 1 << 12
+        data = rng.integers(0, 256, 5 * tile + 100).astype(np.uint8)
+        n = 2 * tile + delta
+        h = np.asarray(histogram_device(jnp.asarray(data), jnp.int32(n), tile=tile))
+        assert np.array_equal(h, np.bincount(data[:n], minlength=256))
 
-        hp = importlib.import_module("datacomp_tpu.ops.histogram_pallas")
-        old = hp._MAX_BYTES_EXACT
-        hp._MAX_BYTES_EXACT = 1 << 17  # shrink the bound so the test is fast
-        try:
-            data = rng.integers(0, 256, (1 << 18) + 64).astype(np.uint8)
-            n = (1 << 17) + 12345  # valid_len straddles a segment boundary
-            h = np.asarray(
-                hp.histogram_pallas.__wrapped__(  # bypass jit: bound is read at trace
-                    jnp.asarray(data), jnp.int32(n), 512, True
-                )
-            )
-            assert np.array_equal(h, np.bincount(data[:n], minlength=256))
-        finally:
-            hp._MAX_BYTES_EXACT = old
+
+def _dot_eqns(jaxpr):
+    """Every dot_general in ``jaxpr`` and in all of its sub-jaxprs (jit,
+    scan, while, switch branches)."""
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            yield eqn
+        for v in eqn.params.values():
+            for sub in v if isinstance(v, (tuple, list)) else (v,):
+                if hasattr(sub, "eqns"):
+                    yield from _dot_eqns(sub)
+                elif hasattr(getattr(sub, "jaxpr", None), "eqns"):
+                    yield from _dot_eqns(sub.jaxpr)
+
+
+#: dots that run at default precision on purpose, by named scope, with the
+#: reason each is exact when f32 operands run as TF32 (10-bit mantissa) or
+#: bf16: every other dot with an f32 operand must ask for HIGHEST.
+_EXACT_AT_DEFAULT_PRECISION = {
+    # 0/1 one-hot operands, f32 accumulation, per-tile counts < 2^24
+    "hist_onehot_dot",
+    # one-hot × table plane: values < 256, one selected product per output
+    "table_lookup_dot",
+    # one-hot × 256-entry symbol table: values < 256, one selected product
+    "symbol_lookup_dot",
+}
+
+
+def _tf32_audit_programs():
+    from datacomp.ops import (
+        device_codebook,
+        encode_device_merge,
+        encode_device_merge_batch_slotted,
+        encode_device_merge_slotted,
+    )
+
+    n, sub, ow = 8192, 256, 2400
+    d = jnp.zeros(n, jnp.uint8)
+    v = jnp.int32(n - 5)
+    lens = jnp.zeros(256, jnp.int32)
+    codes = jnp.zeros(256, jnp.uint32)
+    words = jnp.zeros(ow, jnp.uint32)
+    gaps = jnp.zeros(n // sub, jnp.uint32)
+    lim, adj = jnp.zeros(16, jnp.int32), jnp.zeros(16, jnp.int32)
+    sym = jnp.zeros(256, jnp.int32)
+    return {
+        "histogram": (lambda d, v: histogram_device(d, v, tile=4096), (d, v)),
+        "codebook": (device_codebook, (jnp.zeros(256, jnp.int32),)),
+        "encode": (
+            lambda d, v, l, c: encode_device_merge(d, v, l, c, ow, sub, max_slots=12),
+            (d, v, lens, codes),
+        ),
+        "encode_slotted": (
+            lambda d, v, l, c: encode_device_merge_slotted(d, v, l, c, ow, sub),
+            (d, v, lens, codes),
+        ),
+        "encode_batch_slotted": (
+            lambda d, v, l, c: encode_device_merge_batch_slotted(d, v, l, c, ow, sub),
+            (d[None], v[None], lens[None], codes[None]),
+        ),
+        "decode": (
+            lambda w, g, l, a, s: decode_device(
+                w, g, l, a, s, sub, n // sub, syms_per_step=16, refill_words=8
+            ),
+            (words, gaps, lim, adj, sym),
+        ),
+    }
+
+
+@pytest.mark.parametrize(
+    "program",
+    ["histogram", "codebook", "encode", "encode_slotted",
+     "encode_batch_slotted", "decode"],
+)
+def test_tf32_audit(program):
+    """A GPU may run an f32 dot at default precision as TF32; a dot whose
+    exactness depends on f32 must say HIGHEST.  Walks the traced program and
+    fails on any dot with an f32 operand that neither pins HIGHEST nor sits
+    in an allow-listed named scope."""
+    fn, args = _tf32_audit_programs()[program]
+    jaxpr = jax.make_jaxpr(fn)(*args).jaxpr
+    highest = (jax.lax.Precision.HIGHEST, jax.lax.Precision.HIGHEST)
+    for eqn in _dot_eqns(jaxpr):
+        if not any(x.aval.dtype == jnp.float32 for x in eqn.invars):
+            continue
+        scope = str(eqn.source_info.name_stack)
+        allowed = any(s in scope for s in _EXACT_AT_DEFAULT_PRECISION)
+        assert eqn.params["precision"] == highest or allowed, (
+            f"{program}: f32 dot at default precision outside the allow-list "
+            f"(scope {scope!r}, operands {[str(x.aval) for x in eqn.invars]})"
+        )
 
 
 class TestDeviceCodebook:
@@ -123,7 +222,7 @@ class TestDeviceCodebook:
 
 class TestEncodeScanOracle:
     """The scan-formulation encoder is a DIFFERENTIAL ORACLE (not exported
-    from datacomp_tpu.ops): an independent device implementation the
+    from datacomp.ops): an independent device implementation the
     production tree-merge encoder is cross-checked against below."""
 
     @pytest.mark.parametrize("kind", ["text", "compressible", "random", "skewed"])
@@ -178,7 +277,7 @@ class TestDecodeDevice:
         gpad = np.zeros(Mpad, np.uint32)
         gpad[: gaps.size] = gaps
         limits, adj, sym = build_decode_tables(lens)
-        from datacomp_tpu.ops import syms_per_refill
+        from datacomp.ops import syms_per_refill
         maxlen = int(lens.max())
         tried = set()
         for k in {1, 2, syms_per_refill(maxlen, S)}:
@@ -201,7 +300,7 @@ class TestDecodeDevice:
     def test_wide_refill_roundtrip(self, kind, refill_words):
         """W-word row refills (the per-index gather amortization) decode
         bit-identically, including mid-word gap offsets and deep codebooks."""
-        from datacomp_tpu.ops import cmp_len_bucket, syms_per_refill
+        from datacomp.ops import cmp_len_bucket, syms_per_refill
 
         S = 504  # 2^3*3^2*7: divisible by the wide per-step symbol counts
         data = np.frombuffer(generate_bytes(kind, 33_333), np.uint8)
@@ -245,7 +344,7 @@ class TestEncodeMerge:
     @pytest.mark.parametrize("kind", ["text", "compressible", "random", "skewed"])
     @pytest.mark.parametrize("n", [1, 31, 32, 97, 30_000])
     def test_bit_exact_vs_host(self, kind, n):
-        from datacomp_tpu.ops import encode_device_merge
+        from datacomp.ops import encode_device_merge
 
         data = np.frombuffer(generate_bytes(kind, n), np.uint8)
         N = 32768
@@ -264,7 +363,7 @@ class TestEncodeMerge:
 
     @pytest.mark.parametrize("slots", [18, 33])
     def test_max_slots_buckets(self, slots):
-        from datacomp_tpu.ops import encode_device_merge
+        from datacomp.ops import encode_device_merge
 
         data = np.frombuffer(generate_bytes("text", 8000), np.uint8)
         N = 8192
@@ -292,7 +391,7 @@ class TestEncodeMerge:
         """max_slots also bounds the merge tree's splice loops and buffer
         widths (round 5); every bucket must stay bit-identical to the host
         stream."""
-        from datacomp_tpu.ops import encode_device_merge
+        from datacomp.ops import encode_device_merge
 
         data = np.frombuffer(generate_bytes(kind, 30_000), np.uint8)
         N = 32768
@@ -319,11 +418,9 @@ class TestEncodeMerge:
     def test_window_scatter_bit_exact(self, kind):
         """window_scatter=True places each group's owned words with ONE
         windowed scatter-ADD (1 sorted index per group, dead slots masked
-        to zero).  Measured 22x SLOWER than the chained unique-set form on
-        v5e (1033 vs 46 ms/16 MB, round-5 A/B) — kept as the tested
-        mechanism that refuted the fewer-indices hypothesis; never
-        production.  Must stay bit-identical to the host stream."""
-        from datacomp_tpu.ops import encode_device_merge, slot_bucket
+        to zero) — a tested A/B mechanism, never production.  Must stay
+        bit-identical to the host stream."""
+        from datacomp.ops import encode_device_merge, slot_bucket
 
         data = np.frombuffer(generate_bytes(kind, 30_000), np.uint8)
         N = 32768
@@ -344,7 +441,7 @@ class TestEncodeMerge:
         """fused_scatter=True places every slot's owned words with ONE
         unique-set scatter; the stream must stay bit-identical to the host
         encoder and to the chained-scatter formulation."""
-        from datacomp_tpu.ops import encode_device_merge
+        from datacomp.ops import encode_device_merge
 
         data = np.frombuffer(generate_bytes(kind, 30_000), np.uint8)
         N = 32768
@@ -368,7 +465,7 @@ class TestEncodeMerge:
         assert np.array_equal(np.asarray(words), np.asarray(w2))
 
     def test_matmul_lookup_matches_gather(self, rng):
-        from datacomp_tpu.ops.encode_merge import lookup_symbol_tables
+        from datacomp.ops.encode_merge import lookup_symbol_tables
 
         data = rng.integers(0, 256, 50_000).astype(np.uint8)
         lens, codes = build_codebook(np.bincount(data, minlength=256).astype(np.int64))
@@ -384,7 +481,7 @@ class TestEncodeMerge:
     def test_plane_packed_lookup_bit_exact(self, kind, code_bits):
         """code_bits packs (len, code) into 2-3 one-hot planes (the encode
         MAC-cost lever); output must stay bit-identical to the host stream."""
-        from datacomp_tpu.ops import code_bits_bucket, encode_device_merge
+        from datacomp.ops import code_bits_bucket, encode_device_merge
 
         data = np.frombuffer(generate_bytes(kind, 20_000), np.uint8)
         N = 20_480
@@ -405,7 +502,7 @@ class TestEncodeMerge:
         )
 
     def test_empty(self):
-        from datacomp_tpu.ops import encode_device_merge
+        from datacomp.ops import encode_device_merge
 
         words, tb = encode_device_merge(
             jnp.zeros(1024, jnp.uint8), jnp.int32(0),
@@ -416,13 +513,14 @@ class TestEncodeMerge:
 
 
 class TestEncodeMergeLargeEntropy:
-    """Regression: group bit-lengths above 256 overflowed the default (bf16)
-    TPU matmul precision in the prefix-sum stage, silently corrupting streams
-    for high-entropy chunks (caught by the round-trip checksum).  The cumsum
-    matmul now pins precision=HIGHEST; this covers the shape on any backend."""
+    """Regression: group bit-lengths above 256 overflowed a default-precision
+    (bf16-operand) matmul in the prefix-sum stage, silently corrupting
+    streams for high-entropy chunks (caught by the round-trip checksum).  The
+    cumsum matmul now pins precision=HIGHEST (TF32 would round the same way
+    above 2^11); this covers the shape on any backend."""
 
     def test_random_1mb_bit_exact(self):
-        from datacomp_tpu.ops import encode_device_merge
+        from datacomp.ops import encode_device_merge
 
         n = 1 << 20
         # skewed+random mix: the shared codebook gives the random half 9-bit
@@ -446,7 +544,7 @@ class TestEncodeMergeLargeEntropy:
 
 class TestSlotBuckets:
     def test_slot_bucket_static(self):
-        from datacomp_tpu.ops import SLOT_BUCKETS, slot_bucket
+        from datacomp.ops import SLOT_BUCKETS, slot_bucket
 
         assert SLOT_BUCKETS == (10, 12, 14, 16, 18, 33)
         assert [slot_bucket(m) for m in (1, 8, 10, 14, 16, 17, 32)] == [
@@ -456,7 +554,7 @@ class TestSlotBuckets:
         assert slot_bucket(32) == 33
 
     def test_traced_case_matches_static(self):
-        from datacomp_tpu.ops.encode_merge import SLOT_BUCKETS, _slot_case, slot_bucket
+        from datacomp.ops.encode_merge import SLOT_BUCKETS, _slot_case, slot_bucket
 
         for ml in range(1, 33):
             lens = np.zeros(256, np.int32)

@@ -7,10 +7,10 @@ import pytest
 
 jax = pytest.importorskip("jax")
 
-from datacomp_tpu import native  # noqa: E402
-from datacomp_tpu.ops import words_to_bytes  # noqa: E402
-from datacomp_tpu.parallel import make_mesh, sharded_compress_arrays  # noqa: E402
-from datacomp_tpu.utils.testdata import generate_bytes  # noqa: E402
+from datacomp import native  # noqa: E402
+from datacomp.ops import words_to_bytes  # noqa: E402
+from datacomp.parallel import make_mesh, sharded_compress_arrays  # noqa: E402
+from datacomp.utils.testdata import generate_bytes  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -76,14 +76,14 @@ def test_entry_compiles():
 def test_sharded_decompress_roundtrip(mesh8):
     """Full multi-chip round trip: sharded compress → sharded gap-array
     decompress → byte equality (decompress is pure DP over chunks)."""
-    from datacomp_tpu.ops import (
+    from datacomp.ops import (
         build_decode_tables,
         cmp_len_bucket,
         max_code_len,
         payload_to_words,
         syms_per_refill,
     )
-    from datacomp_tpu.parallel import make_sharded_decompress_step
+    from datacomp.parallel import make_sharded_decompress_step
 
     CH = 16384
     B = 8
@@ -119,7 +119,7 @@ def test_sharded_decompress_roundtrip(mesh8):
     assert np.array_equal(decoded.reshape(B, CH), batch)
 
     # the validated convenience wrapper must agree
-    from datacomp_tpu.parallel import sharded_decompress_arrays
+    from datacomp.parallel import sharded_decompress_arrays
 
     decoded2 = np.asarray(
         sharded_decompress_arrays(
@@ -133,7 +133,7 @@ def test_sharded_decompress_roundtrip(mesh8):
 def test_decompress_step_params_validated():
     """Static decode params that cannot cover the batch's deepest codebook
     must be rejected host-side, not silently corrupt output (advisor r1)."""
-    from datacomp_tpu.parallel import check_decompress_step_params
+    from datacomp.parallel import check_decompress_step_params
 
     deep = np.zeros(256, np.int32)
     deep[:64] = 12  # 12-bit codebook
@@ -163,11 +163,11 @@ def test_mixed_batch_deep_chunk_routes_to_host(mesh8):
     """A batch containing one >16-bit-codebook chunk: the validated device
     wrapper rejects the whole batch; the dispatcher pattern device-decodes
     the shallow chunks and host-decodes the deep one (the same routing
-    TpuChunkCodec.decode_chunk applies per chunk)."""
-    from datacomp_tpu.core import build_codebook
-    from datacomp_tpu.core.bitio import decode_bitstream_py, encode_bitstream
-    from datacomp_tpu.ops import max_code_len
-    from datacomp_tpu.parallel import (
+    DeviceChunkCodec.decode_chunk applies per chunk)."""
+    from datacomp.core import build_codebook
+    from datacomp.core.bitio import decode_bitstream_py, encode_bitstream
+    from datacomp.ops import max_code_len
+    from datacomp.parallel import (
         check_decompress_step_params,
         sharded_decompress_arrays,
     )
@@ -205,8 +205,8 @@ def test_mixed_batch_deep_chunk_routes_to_host(mesh8):
         got = decode_bitstream_py(payloads[i], CH, lengths[i])
         assert np.array_equal(got, batch[i])
     # device path needs the gap arrays: re-encode shallow chunks with gaps
-    from datacomp_tpu import native
-    from datacomp_tpu.ops import payload_to_words
+    from datacomp import native
+    from datacomp.ops import payload_to_words
 
     if not native.is_available():
         pytest.skip("native codec unavailable for gap re-encode")

@@ -6,8 +6,8 @@ properties over arbitrary byte strings."""
 import numpy as np
 from hypothesis import given, settings, strategies as st
 
-from datacomp_tpu import native
-from datacomp_tpu.core import (
+from datacomp import native
+from datacomp.core import (
     build_codebook,
     decode_bitstream_py,
     encode_bitstream,

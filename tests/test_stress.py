@@ -9,9 +9,9 @@ import threading
 import numpy as np
 import pytest
 
-from datacomp_tpu.config import load_config
-from datacomp_tpu.services.cpu_service import CpuCompressionService
-from datacomp_tpu.utils.testdata import generate_bytes
+from datacomp.config import load_config
+from datacomp.services.cpu_service import CpuCompressionService
+from datacomp.utils.testdata import generate_bytes
 
 
 @pytest.fixture(scope="module")

@@ -6,11 +6,11 @@ import os
 import numpy as np
 import pytest
 
-from datacomp_tpu.config import load_config
-from datacomp_tpu.models import CompressionMetrics, MetricsService, OperationType
-from datacomp_tpu.ui import export_html, render_dashboard
-from datacomp_tpu.ui.dashboard import sparkline
-from datacomp_tpu.utils.testdata import JavaRandom, generate_bytes, java_random_bytes
+from datacomp.config import load_config
+from datacomp.models import CompressionMetrics, MetricsService, OperationType
+from datacomp.ui import export_html, render_dashboard
+from datacomp.ui.dashboard import sparkline
+from datacomp.utils.testdata import JavaRandom, generate_bytes, java_random_bytes
 
 
 @pytest.fixture
@@ -29,7 +29,7 @@ def populated_metrics():
 class TestDashboard:
     def test_render_empty(self):
         out = render_dashboard(MetricsService())
-        assert "datacomp-tpu dashboard" in out
+        assert "datacomp dashboard" in out
         assert "No operations recorded" in out
 
     def test_render_populated(self, populated_metrics):
@@ -107,7 +107,7 @@ class TestConfig:
         with pytest.raises(ValueError, match="subblock"):
             load_config(compression={"format_version": 2, "subblock_symbols": 100})
         # max_code_len × device mode warns once, centrally, for ALL backends
-        with caplog.at_level(logging.WARNING, logger="datacomp_tpu.config"):
+        with caplog.at_level(logging.WARNING, logger="datacomp.config"):
             load_config(compression={"max_code_len": 12, "codebook_mode": "device"})
         assert any("ignored in codebook_mode='device'" in r.message for r in caplog.records)
 
@@ -115,14 +115,14 @@ class TestConfig:
 class TestLogging:
     def test_setup_and_metrics_log(self, tmp_path, monkeypatch):
         monkeypatch.chdir(tmp_path)
-        from datacomp_tpu.utils import logging_setup
+        from datacomp.utils import logging_setup
 
         logging_setup._configured = False
         cfg = load_config(
             logging={"file_path": str(tmp_path / "logs" / "dc.log"), "metrics_enabled": True}
         )
         logging_setup.setup_logging(cfg, force=True)
-        logging.getLogger("datacomp_tpu.test").info("hello")
+        logging.getLogger("datacomp.test").info("hello")
         MetricsService.get_instance().add_metrics(
             CompressionMetrics("x.bin", OperationType.COMPRESSION, 10, 5, 0.1, "CPU")
         )
@@ -166,12 +166,12 @@ class TestInteractiveApp:
     renderers and key state machine (curses driver excluded)."""
 
     def _state(self):
-        from datacomp_tpu.ui.app import AppState
+        from datacomp.ui.app import AppState
 
         return AppState()
 
     def test_view_navigation_and_render(self):
-        from datacomp_tpu.ui.app import handle_key, render_view
+        from datacomp.ui.app import handle_key, render_view
 
         st = self._state()
         for key, name in zip("1234", ("dashboard", "Compress", "Benchmark", "Settings")):
@@ -182,7 +182,7 @@ class TestInteractiveApp:
         assert st.quit
 
     def test_compress_view_text_entry_and_validation(self, tmp_path):
-        from datacomp_tpu.ui.app import KEY_BACKSPACE, KEY_ENTER, KEY_TAB, handle_key
+        from datacomp.ui.app import KEY_BACKSPACE, KEY_ENTER, KEY_TAB, handle_key
 
         st = self._state()
         handle_key(st, "2")
@@ -200,8 +200,8 @@ class TestInteractiveApp:
     def test_compress_runs_end_to_end(self, tmp_path):
         import time
 
-        from datacomp_tpu.ui.app import KEY_ENTER, handle_key, render_view
-        from datacomp_tpu.utils.testdata import generate_bytes
+        from datacomp.ui.app import KEY_ENTER, handle_key, render_view
+        from datacomp.utils.testdata import generate_bytes
 
         src = tmp_path / "ui.bin"
         src.write_bytes(generate_bytes("text", 200_000))
@@ -221,8 +221,8 @@ class TestInteractiveApp:
         assert "MB/s" in st.op.message and "Encoding" in text  # stage breakdown
 
     def test_settings_cycle_and_save(self, tmp_path, monkeypatch):
-        from datacomp_tpu.config import load_config
-        from datacomp_tpu.ui.app import KEY_DOWN, KEY_RIGHT, handle_key
+        from datacomp.config import load_config
+        from datacomp.ui.app import KEY_DOWN, KEY_RIGHT, handle_key
 
         monkeypatch.chdir(tmp_path)
         st = self._state()

@@ -23,9 +23,9 @@ import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from datacomp_tpu.config import load_config  # noqa: E402
-from datacomp_tpu.services.cpu_service import CpuCompressionService  # noqa: E402
-from datacomp_tpu.utils.testdata import generate_bytes  # noqa: E402
+from datacomp.config import load_config  # noqa: E402
+from datacomp.services.cpu_service import CpuCompressionService  # noqa: E402
+from datacomp.utils.testdata import generate_bytes  # noqa: E402
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                           "tests", "golden")

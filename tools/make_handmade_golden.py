@@ -6,7 +6,7 @@ encoder, so they pin regressions but cannot catch a bug this repo's writer
 and reader share.  This script assembles a minimal v1 container **by hand**
 from the reference's documented format (reference ``docs/FILE_FORMAT.md:15-135``,
 ``core/CompressionHeader.java:51-85``) using nothing but ``struct`` and
-``hashlib`` — no datacomp_tpu imports — pinning container-level parity
+``hashlib`` — no datacomp imports — pinning container-level parity
 independent of this repo's code:
 
 * payload: canonical-Huffman bitstream hand-derived below (MSB-first bit
